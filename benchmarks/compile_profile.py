@@ -18,6 +18,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+# true cold costs: the persistent cache stays off for this process
+jax.config.update("jax_enable_compilation_cache", False)
+
 T0 = time.time()
 
 
@@ -51,7 +54,7 @@ def main():
         cfg = DPMMConfig(
             k_max=k, chunk_size=16384, burnout=5, alpha=10.0, verbose=False,
             track_posterior=False, merge_candidates=4 * k,
-            precompute_features=True, compile_cache_dir=None,
+            precompute_features=True,
         )
         engine = DPMMEngine(GAUSSIAN, cfg, mesh)
         points, valid, n_total = engine.shard_points(x)

@@ -67,10 +67,11 @@ def labeling_log_posterior(x, labels, alpha):
 def main():
     import jax
 
-    # CPU: tiny fits; keeps the (shared, serialized) TPU free for big jobs
+    # CPU: tiny fits; keeps the accelerator free for big jobs
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from dpmmsubclusters_tpu.utils.compile_cache import ensure_compile_cache
+
+    ensure_compile_cache()
     import dpmmsubclusters_tpu as dpmm
 
     data_seeds = int(os.environ.get("DATA_SEEDS", "10"))

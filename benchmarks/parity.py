@@ -2,12 +2,12 @@
 
 Quantifies the sampler's run-to-run distribution — cluster count K, NMI vs
 ground truth, sorted mixture-weight vectors — over many seeds, and A/Bs the
-TPU-first chain (expectation-halved post-move sub-stats, no sub-label
+default chain (expectation-halved post-move sub-stats, no sub-label
 re-randomization) against the reference-exact chain
 (``exact_post_move_stats=True``: O(N) realized recomputes + Bernoulli
 sub-label redraws, matching ``src/local_clusters_actions.jl:265-278,481-516``).
 
-Acceptance (documented in benchmarks/results/PARITY.md):
+Acceptance:
   * per-config quality gates hold for EVERY mode (e.g. 4-corner: K == 4 and
     NMI == 1.0 on >= 95% of seeds — the reference's own golden gate,
     /root/reference/test/module_tests.jl:10-47);
@@ -16,7 +16,7 @@ Acceptance (documented in benchmarks/results/PARITY.md):
 
 Usage:
     python benchmarks/parity.py corner gen2d mnm --seeds 20
-    PYTHONPATH=... python benchmarks/parity.py flagship --seeds 20   # on TPU
+    python benchmarks/parity.py flagship --seeds 20   # on a GPU
 
 Writes benchmarks/results/parity_<config>.json with every run + summary.
 """
@@ -59,9 +59,9 @@ def _make_config(name, data_seed=0):
         # (docs/src/getting_started.md:31-37).  The r4 harness left the
         # default burnout=20, which halves the number of split waves in
         # 100 iters and under-splits borderline datasets (K=5 on dataset
-        # seed 0) -- see benchmarks/results/gen2d_study.json: with the
-        # showcase recipe the chain's f64 log posterior matches or beats
-        # the planted labeling's on every dataset.
+        # seed 0; benchmarks/gen2d_study.py): with the showcase recipe the
+        # chain's f64 log posterior matches or beats the planted
+        # labeling's on every dataset.
         kw = dict(alpha=10.0, iters=100, burnout=10, k_max=32)
         gates = {"nmi_min": 0.85, "gate_frac": 0.90}
     elif name == "mnm":
@@ -218,8 +218,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from dpmmsubclusters_tpu.utils.compile_cache import ensure_compile_cache
+
+    ensure_compile_cache()
     print(f"devices: {jax.devices()}", file=sys.stderr, flush=True)
 
     for name in args.configs:

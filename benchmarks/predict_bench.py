@@ -21,8 +21,9 @@ RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results")
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from dpmmsubclusters_tpu.utils.compile_cache import ensure_compile_cache
+
+    ensure_compile_cache()
     import dpmmsubclusters_tpu as dpmm
     from dpmmsubclusters_tpu.api import _model_from_state
     from dpmmsubclusters_tpu.config import DPMMConfig

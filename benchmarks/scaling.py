@@ -5,7 +5,7 @@ Three modes:
 * ``strong`` (default): fixed total workload (N points) split over P
   processes with 1 CPU device each, cross-process gloo collectives -- the
   single-machine analog of the reference's multi-machine mode and of a
-  multi-host TPU run (the per-sweep communication is the same ONE
+  multi-GPU run (the per-sweep communication is the same ONE
   [K, 2, F] psum either way).  Efficiency = t1 / (P * tP).
 * ``weak``: CONSTANT rows per process (N_total = N_per_proc * P) --
   ideal scaling keeps ms/sweep flat; efficiency = t1 / tP.  This is the

@@ -55,8 +55,9 @@ def main(which):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from dpmmsubclusters_tpu.utils.compile_cache import ensure_compile_cache
+
+    ensure_compile_cache()
     print(f"devices: {jax.devices()}", file=sys.stderr, flush=True)
 
     if "2d" in which:
@@ -118,7 +119,7 @@ def main(which):
         run_config(
             "gaussian_10M_d64",
             # fixed capacity: one compiled program per run (tier engines
-            # would each pay a slow remote compile on cold caches)
+            # would each pay a compile on cold caches)
             dict(alpha=10.0, iters=30, seed=1, k_max=192, burnout=5,
                  track_posterior=False, merge_candidates=768,
                  auto_tier=False),

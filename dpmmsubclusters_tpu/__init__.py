@@ -1,11 +1,11 @@
-"""dpmmsubclusters_tpu: a TPU-native DPMM sub-cluster sampler framework.
+"""dpmmsubclusters_tpu: a DPMM sub-cluster sampler framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 BGU-CS-VIL/DPMMSubClusters.jl (Chang & Fisher NIPS-2013 parallel sub-cluster
 sampler for Dirichlet-process mixture models): restricted Gibbs sweeps with
 auxiliary 2-way sub-clusters and Metropolis-Hastings split/merge moves, for
 conjugate exponential-family priors (Gaussian/NIW and Multinomial/Dirichlet),
-data-sharded over TPU device meshes.
+data-sharded over device meshes (one or several GPUs).
 """
 
 from .config import DPMMConfig

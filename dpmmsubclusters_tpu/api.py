@@ -1,6 +1,6 @@
 """Public API: ``fit`` / ``predict`` / checkpointing.
 
-TPU-native re-design of the reference's user-facing layer
+Re-design of the reference's user-facing layer
 (``src/dp-parallel-sampling.jl``): the four ``fit`` overloads (``:215-293``),
 ``dp_parallel`` (``:121``), ``run_model_from_checkpoint`` (``:428``),
 ``save_model`` (``:450``), ``calculate_posterior`` (``:458``), ``predict``
@@ -29,6 +29,7 @@ from .parallel.mesh import make_data_mesh
 from .sampler.driver import DPMMEngine, DPMMState, IterStats, run_loop
 from .sampler.table import log_posterior as _table_log_posterior
 from .io.checkpoint import load_checkpoint, save_checkpoint
+from .utils.compile_cache import ensure_compile_cache
 
 _FAMILIES = {"gaussian": GAUSSIAN, "multinomial": MULTINOMIAL}
 
@@ -67,9 +68,7 @@ def _tier_setup(fam, cfg: DPMMConfig, mesh, k_start: Optional[int] = None):
         return _get_engine(fam, cfg, mesh), None, None
     # a max_clusters cap bounds the useful capacity: splits are suppressed
     # at the cap, so any tier beyond the smallest one covering it is pure
-    # table-width waste (measured: capacity 128 costs +2.5 ms/sweep over
-    # 64 at the 1M x 32-d flagship -- one extra MXU column tile,
-    # benchmarks/results/capacity_curve_r5.json)
+    # table-width waste (every per-sweep cost grows with the table width)
     ceiling = cfg.k_max
     if cfg.max_clusters is not None:
         need = int(cfg.max_clusters) + (1 if cfg.outlier_mod > 0 else 0)
@@ -91,37 +90,16 @@ def _tier_setup(fam, cfg: DPMMConfig, mesh, k_start: Optional[int] = None):
     )
 
 # Engines are cached per (family, config, mesh): each DPMMEngine owns fresh
-# jit closures, so rebuilding one per fit() call would retrace and re-fetch
-# every compiled program (slow over remote-compile backends).
+# jit closures, so rebuilding one per fit() call would retrace every
+# compiled program.
 _ENGINE_CACHE: dict = {}
-
-
-def _ensure_compile_cache(cfg: DPMMConfig) -> None:
-    """Wire the persistent XLA compilation cache into the product path
-    (``cfg.compile_cache_dir``).  Defers to any cache dir the process
-    already configured; never raises (a read-only home dir just means no
-    cache)."""
-    d = cfg.compile_cache_dir
-    if not d:
-        return
-    import os
-
-    try:
-        if jax.config.jax_compilation_cache_dir is not None:
-            return
-        path = os.path.expanduser(d)
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-    except Exception:
-        pass
 
 
 def _get_engine(fam, cfg: DPMMConfig, mesh) -> DPMMEngine:
     key = (fam.name, cfg, tuple(d.id for d in mesh.devices.flat))
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
-        _ensure_compile_cache(cfg)
+        ensure_compile_cache()
         eng = DPMMEngine(fam, cfg, mesh)
         if len(_ENGINE_CACHE) > 8:
             _ENGINE_CACHE.clear()
@@ -185,8 +163,8 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _effective_chunk(cfg: DPMMConfig, n: int, n_dev: int) -> int:
-    """Per-device scan chunk: multiple of 512 so the Pallas point tiles
-    divide it evenly (see sampler.assign.pick_tile)."""
+    """Per-device scan chunk: a multiple of 512 (and so of the 128-row
+    blocks of the per-point streams)."""
     per_dev = -(-n // n_dev)
     return max(
         512, min(_round_up(cfg.chunk_size, 512), _round_up(per_dev, 512))
@@ -642,10 +620,10 @@ def fit_distributed(
     ``addprocs`` + ``DistributedArrays.distribute``,
     ``docs/src/perf.md:3``, ``src/dp-parallel-sampling.jl:42``).  Call
     ``parallel.distributed.initialize()`` first on every process; the global
-    mesh spans all chips of all processes and the per-sweep statistics
-    ``psum`` rides ICI/DCN.  The returned model's ``labels`` cover THIS
-    process's rows only (the table and all cluster parameters are global
-    and identical on every process).
+    mesh spans all devices of all processes and the per-sweep statistics
+    ``psum`` is the only cross-process collective.  The returned model's
+    ``labels`` cover THIS process's rows only (the table and all cluster
+    parameters are global and identical on every process).
     """
     from .parallel import distributed as dist
 

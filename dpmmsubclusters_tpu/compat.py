@@ -3,7 +3,7 @@
 The reference is consumed either from Julia (``DPMMSubClusters.fit``) or via
 the out-of-tree Python wrapper ``dpmmpython`` (``README.md:7``), both using
 the D x N data layout and 1-based labels.  This module mirrors those calling
-conventions on top of the TPU engine so existing scripts can switch by
+conventions on top of this engine so existing scripts can switch by
 changing an import.
 
     from dpmmsubclusters_tpu import compat as DPMMPython

@@ -1,9 +1,9 @@
-"""Configuration for the TPU DPMM sampler.
+"""Configuration for the DPMM sampler.
 
 Replaces the reference's three-source global-variable config system
 (``src/global_params.jl`` defaults, params-file ``include`` overwrite, and
 ``fit`` kwargs, see ``src/dp-parallel-sampling.jl:135-146,318``) with a single
-immutable dataclass.  Field names follow the reference knobs; TPU-specific
+immutable dataclass.  Field names follow the reference knobs; the execution
 fields (``k_max``, ``chunk_size``, ``center_data``) control the padded
 static-shape design.
 """
@@ -35,17 +35,15 @@ class DPMMConfig:
     # sits on a symmetric saddle for slots holding >= 2 well-separated
     # components -- the sampled l/r parameters fit the merged blob almost
     # identically, sub-labels stay near coin-flips, and the chain
-    # under-splits for hundreds of sweeps (measured round 4: 1M x 32-d
-    # 64-component data stalls at K~40/NMI 0.93 without smart splits vs
-    # K=64/NMI 1.0 with them; the round-3 kernel masked this by accident --
-    # its bf16 sub-logit cancellation noise acted as a tempering kick).
+    # under-splits for hundreds of sweeps (1M x 32-d 64-component data
+    # stalls well short of K=64 without smart splits).
     # Smart splits only (re)initialize sub-labels of newborn clusters; every
     # split/merge decision remains the exact MH rule on realized statistics.
     max_split_iter: int = 20
 
-    # --- TPU execution -----------------------------------------------------
+    # --- execution ---------------------------------------------------------
     k_max: int = 64                 # padded cluster-table capacity
-    chunk_size: int = 16384         # points per on-chip tile of the sweep
+    chunk_size: int = 16384         # points per scan chunk of the sweep
     center_data: bool = True        # subtract global mean; shifts prior mean
     standardize_data: bool = True   # ALSO divide each dimension by its
     # global std (gaussian only; prior m/psi are rescaled to match, results
@@ -57,37 +55,31 @@ class DPMMConfig:
     # Cholesky logdet noise is amplified by nu_post ~ n into O(100)-nat
     # errors in the split/merge decisions.  The reference dodges this by
     # keeping m/psi/suff-stats in Float64 (src/priors/niw.jl:7-17);
-    # standardizing instead keeps the whole pipeline f32/TPU-native.
-    use_pallas: Optional[bool] = None  # None = auto (TPU only)
+    # standardizing instead keeps the whole pipeline float32.
     fused_block: int = 16           # sweeps fused per dispatch (async mode)
     merge_candidates: Optional[int] = None  # None = exact all-pairs merge
     # scan; an int M evaluates only the top-M screen-score pairs (O(M)
     # Cholesky work instead of O(K^2))
     precompute_features: Optional[bool] = None  # build the [N, F] feature
-    # rows ONCE per fit and stream them per sweep instead of rebuilding in
-    # the kernel (the build is VPU-bound narrow-lane work, ~25% of the
-    # Gaussian kernel at D=32).  None = auto: on when the per-device
-    # feature cache fits feature_cache_bytes.  Composes with smart splits
-    # (the raw points are recovered from cache columns 1..D)
+    # rows ONCE per fit and stream them per sweep instead of rebuilding
+    # them every sweep.  None = auto: on when the per-device feature cache
+    # fits feature_cache_bytes.  Composes with smart splits (the raw
+    # points are recovered from cache columns 1..D)
     feature_cache_bytes: int = 4 << 30  # per-device budget for the cache
     feature_dtype: str = "float32"  # storage layout of the precomputed
     # feature cache:
     #   "float32"  (default) -- one f32 cache serves both the likelihood
-    #     matmul and the statistics contraction.  Round-5 measurement: the
-    #     fused kernel is COMPUTE-bound, not DMA-bound (halving the input
-    #     stream saves only ~1.4 ms of 8.2 at the flagship), so cheaper
-    #     cache layouts buy little; see docs/perf.md "Roofline autopsy".
+    #     matmul and the statistics contraction.
     #   "hybrid"   -- a bf16 [N, F] cache feeds ONLY the likelihood matmul
-    #     (bf16 logit noise is far below the Gumbel sampling noise) while
-    #     the statistics contraction rebuilds exact f32 feature rows
-    #     in-kernel from the raw [N, D] points stored alongside.  45% less
-    #     cache memory + traffic at full statistical quality -- use when
-    #     HBM capacity is the constraint.
-    #   "bfloat16" -- one bf16 cache serves both: halves traffic but the
+    #     (bf16 logit noise is far below the sampling noise) while the
+    #     statistics contraction rebuilds exact f32 feature rows from the
+    #     raw [N, D] points stored alongside.  45% less cache memory at
+    #     full statistical quality -- use when device memory is the
+    #     constraint.
+    #   "bfloat16" -- one bf16 cache serves both: halves the cache but the
     #     ~2^-9 per-point rounding leaves ~0.1% rms noise on each cluster
     #     covariance, which nu_post ~ n_k amplifies into O(30)-nat noise on
-    #     every split/merge Hastings ratio: the chain under-splits (fails
-    #     the 200k x 32-d gate; benchmarks/results/stats_precision_r3.json).
+    #     every split/merge Hastings ratio: the chain under-splits.
     #     Serving/assignment-dominated workloads only.
     auto_tier: Optional[bool] = None  # adaptive table capacity: run at the
     # smallest tier (16, 32, ..., k_max) with >=4x split headroom over the
@@ -95,21 +87,6 @@ class DPMMConfig:
     # None = on when k_max >= 64 (small tables aren't worth extra compiles)
     track_posterior: bool = True    # per-sweep log-posterior metric (the
     # reference computes it only when verbose, dp-parallel-sampling.jl:379)
-    ll_precision: str = "default"   # Pallas likelihood-matmul precision:
-    # "default" = 1 bf16 MXU pass (logit noise ~1e-3 relative -- far below
-    # the Gumbel sampling noise; ~1.5x faster kernel), "highest" = exact f32
-    stats_precision: str = "split2"  # statistics-matmul precision.  The
-    # covariance suff stat cancels E[xx] - mu mu^T, so plain bf16 ("default")
-    # is unusable (K=17/NMI 0.964 on the 200k x 32-d gate).  "split2"/"split3"
-    # are one-sided bf16 splits (ops/pallas_sweep._stats_dot): the one-hot
-    # operand is exact in bf16, so 2 feature planes give a ~16-bit mantissa
-    # (rtol 3e-5 vs exact f32) and 3 planes >= f32's 24 bits (rtol 2e-6),
-    # at 1/3 resp. 1/2 the MXU passes of "highest" (6).  Default split2:
-    # passes every quality gate at full NMI (round-4 TPU evidence: 200k x
-    # 32-d K=20/NMI 1.0, flagship K=64/NMI 1.0, 20/20 parity runs) and cuts
-    # the fused kernel ~2.3 ms/sweep at the flagship vs split3
-    # (benchmarks/kernel_tile_study.py).  Use "split3"/"highest" for extra
-    # margin on ill-conditioned unstandardized data.
     reference_splittable_gate: bool = False  # reproduce the reference's
     # biased splittable gate verbatim: its burnout window "mean" divides by
     # (b - 0.1) instead of b (shared_actions.jl:54-63), so clusters with
@@ -137,12 +114,6 @@ class DPMMConfig:
     # --- run control -------------------------------------------------------
     seed: Optional[int] = None
     verbose: bool = True
-    compile_cache_dir: Optional[str] = "~/.cache/dpmmsubclusters_tpu/xla"
-    # persistent XLA compilation cache (None/"" disables).  Applied once, on
-    # first engine construction, and only if the process hasn't already set
-    # jax_compilation_cache_dir -- a fresh process then pays seconds instead
-    # of minutes of compiles for every (shape, tier) program it has seen
-    # before.  No reference counterpart; TPU table stakes.
 
     # --- checkpointing (reference src/global_params.jl:36-40) --------------
     enable_saving: bool = False
@@ -177,14 +148,6 @@ class DPMMConfig:
         if self.feature_dtype not in ("float32", "bfloat16", "hybrid"):
             _bad(f"feature_dtype must be 'float32', 'bfloat16' or 'hybrid', "
                  f"got {self.feature_dtype!r}")
-        ll_allowed = ("default", "high", "highest", "bf16")
-        if self.ll_precision not in ll_allowed:
-            _bad(f"ll_precision must be one of {ll_allowed}, "
-                 f"got {self.ll_precision!r}")
-        st_allowed = ("default", "high", "highest", "split2", "split3")
-        if self.stats_precision not in st_allowed:
-            _bad(f"stats_precision must be one of {st_allowed}, "
-                 f"got {self.stats_precision!r}")
 
     @classmethod
     def reference_verbatim(cls, **kw) -> "DPMMConfig":

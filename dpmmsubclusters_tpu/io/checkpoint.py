@@ -1,6 +1,6 @@
 """Checkpoint save/load.
 
-TPU-native equivalent of the reference's JLD2 checkpoints
+Equivalent of the reference's JLD2 checkpoints
 (``src/dp-parallel-sampling.jl:396-401,450-455``; ``src/ds.jl:60-66,85-92``):
 like the reference's ``pts_less_group``, checkpoints store labels,
 sub-labels, the full cluster table, the PRNG key and the step -- but NOT the

@@ -2,7 +2,7 @@
 
 The reference stores datasets as ``.npy`` files laid out N x D and loads
 them with a NaN -> 0 scrub and a transpose to its internal D x N layout.
-The TPU framework's internal layout is [N, D] (rows = points), so
+The framework's internal layout is [N, D] (rows = points), so
 ``load_data`` only scrubs -- no transpose (pass ``swapdims=True`` for
 reference-layout D x N files).
 

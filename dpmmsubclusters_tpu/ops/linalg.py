@@ -1,20 +1,20 @@
 """Batched linear-algebra / special-function primitives for the DPMM sampler.
 
-TPU-native building blocks used by the conjugate-prior layer:
+Building blocks used by the conjugate-prior layer:
 
 * ``log_multivariate_gamma`` -- multivariate log-gamma (reference:
   ``src/utils.jl:66-72``), vectorized over a batch of arguments.
 * ``sample_wishart_precision`` -- Bartlett-decomposition sampler for the
   precision matrix of a Normal-Inverse-Wishart posterior.  The reference
   samples ``Sigma ~ InverseWishart(nu, nu*Psi)`` and then inverts
-  (``src/priors/niw.jl:34-40``); on TPU we sample the *precision*
+  (``src/priors/niw.jl:34-40``); here we sample the *precision*
   ``P = Sigma^-1 ~ Wishart(nu, (nu*Psi)^-1)`` directly via the Bartlett
   decomposition so no explicit matrix inverse of a random matrix is needed,
-  only triangular solves (batched, MXU/VPU friendly).
+  only triangular solves (batched).
 * masked/batched Cholesky helpers that stay finite on inactive cluster slots.
 
 All functions are written *batched natively* (leading batch dims, no Python
-loops) so they jit onto the TPU as a handful of fused XLA ops.
+loops) so they jit into a handful of fused XLA ops.
 """
 from __future__ import annotations
 

@@ -1,25 +1,32 @@
-"""Multi-host (pod-slice) support.
+"""Multi-process support.
 
-TPU-native replacement for the reference's multi-machine mode -- Julia
+Replacement for the reference's multi-machine mode -- Julia
 ``addprocs(machine_specs)`` + the node-leader reduce/broadcast tree
 (``docs/src/perf.md:3``, ``src/utils.jl:51-64``).  Here multi-machine =
-multi-process JAX: every host calls :func:`initialize`, builds the same
-global mesh over all chips, and feeds its local rows; the sweep's single
-statistics ``psum`` rides ICI within a slice and DCN across slices -- the
-two-level tree the reference hand-rolls is what XLA's collective lowering
-does automatically.
+multi-process JAX: every process calls :func:`initialize`, builds the same
+global mesh over all devices, and feeds its local rows; the sweep's single
+statistics ``psum`` is the only collective (NCCL on GPUs) -- the two-level
+tree the reference hand-rolls is what XLA's collective lowering does
+automatically.
 
-Typical pod-slice launch (same script on every host):
+Typical launch, one process per GPU (same script everywhere; on GPUs the
+coordinator, process count and process id are given, not discovered):
 
     import dpmmsubclusters_tpu as dpmm
     from dpmmsubclusters_tpu.parallel import distributed
 
-    distributed.initialize()          # env-driven on TPU pods
+    distributed.initialize("host0:12345", num_processes=4, process_id=i,
+                           local_device_ids=[i])
     x_local = load_my_shard(jax.process_index())
     result = dpmm.fit_distributed(x_local, alpha=10.0, iters=100)
+
+``local_device_ids`` gives each process its own card while every card stays
+visible to the CUDA runtime; on four H100s NCCL then joins the processes
+peer to peer over NVLink (``P2P/CUMEM`` in its log).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,20 +34,41 @@ import jax
 
 from .mesh import DATA_AXIS, make_data_mesh
 
+SHARD_AUTOTUNING_OFF = "--xla_gpu_shard_autotuning=false"
+
+
+def autotune_per_process(environ=os.environ) -> None:
+    """Turn off XLA:GPU's sharded autotuning unless ``XLA_FLAGS`` names it.
+
+    In a multi-process job XLA:GPU splits the autotuning of each program
+    among the processes and swaps the results through the coordination
+    service.  With one process per H100 that exchange crashed the compiler
+    (SIGSEGV in processes 2 and 3 of 4, JAX 0.9.0); each process now
+    autotunes its own programs.  XLA reads ``XLA_FLAGS`` when the backend
+    starts, so this must run before any device is used.
+    """
+    flags = environ.get("XLA_FLAGS", "")
+    if "xla_gpu_shard_autotuning" not in flags:
+        environ["XLA_FLAGS"] = f"{flags} {SHARD_AUTOTUNING_OFF}".strip()
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
+               process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None) -> None:
     """Initialize JAX's multi-process runtime.
 
-    On TPU pods all arguments are discovered from the environment; for
-    multi-process CPU/GPU testing pass them explicitly
+    Pass the first three arguments: nothing discovers them on a GPU host
     (counterpart of the user-level ``addprocs`` in the reference's docs).
+    ``local_device_ids`` are the cards this process drives (all local
+    devices when None).
     """
+    autotune_per_process()
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 

@@ -1,13 +1,14 @@
-"""Device-mesh helpers: the TPU-native replacement for the reference's
-Julia ``Distributed`` worker topology.
+"""Device-mesh helpers: the replacement for the reference's Julia
+``Distributed`` worker topology.
 
 The reference discovers a two-level master/node-leader/worker tree over TCP
 RPC (``src/utils.jl:51-64``) and hand-rolls reduce/broadcast over it
 (``src/local_clusters_actions.jl:171-203,518-549``).  Here the *entire*
-topology is a 1-D ``jax.sharding.Mesh`` over every addressable chip; points
-are sharded over the ``"data"`` axis, the cluster table is replicated, and
-the per-sweep statistics reduction is a single ``psum`` that XLA lowers onto
-ICI (intra-slice) / DCN (inter-slice) automatically.
+topology is a 1-D ``jax.sharding.Mesh`` over every addressable device;
+points are sharded over the ``"data"`` axis, the cluster table is
+replicated, and the per-sweep statistics reduction is a single ``psum``
+that XLA hands to NCCL on GPUs.  The GPUs of a host reach each other all to
+all, so the mesh follows the algorithm alone: one data axis.
 """
 from __future__ import annotations
 

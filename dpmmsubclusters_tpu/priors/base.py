@@ -1,10 +1,10 @@
 """The conjugate-prior "family" protocol.
 
-This is the TPU-native re-design of the reference's 7-function extension
+This is the batched re-design of the reference's 7-function extension
 contract (``docs/src/priors.md:24-78``; implemented for NIW in
 ``src/priors/niw.jl`` and for Dirichlet/Multinomial in
 ``src/priors/multinomial_prior.jl``).  Differences from the reference, driven
-by XLA/TPU:
+by XLA's static-shape, batched execution:
 
 * Everything is **batched struct-of-arrays**: hyperparameters, sufficient
   statistics and sampled parameters are pytrees (dicts of arrays) with
@@ -17,8 +17,7 @@ by XLA/TPU:
   ``features`` ([N, D] -> [N, F]) and ``sample_params`` produces ``phi``
   ([..., F]).  This turns the hot per-point x per-cluster likelihood loop of
   the reference (``src/distributions/mv_gaussian.jl:21-25``,
-  ``src/utils.jl:75-84``) into a single ``[N, F] @ [F, 3*K]`` matmul on the
-  MXU.
+  ``src/utils.jl:75-84``) into a single ``[N, F] @ [F, 3*K]`` matmul.
 
 * Sufficient statistics are likewise linear: ``stat_features`` maps points to
   ``[N, S]`` rows whose masked segment-sum over label/sub-label one-hots
@@ -68,9 +67,8 @@ class Family(Protocol):
     # augment_prior: attach per-slot caches of prior-only log-marginal terms
     # as extra pytree leaves (they ride every prior-row scatter/remap).
     # posterior_cache: factor per-(posterior, mask) work ONCE and share it
-    # between log_marginal and sample_params (for NIW: the psi Cholesky --
-    # its sequential column loop is latency-bound on TPU, so each avoided
-    # factorization is wall time).  May return None.
+    # between log_marginal and sample_params (for NIW: the psi Cholesky, a
+    # batched factorization per call).  May return None.
     def augment_prior(self, prior_k: Pytree) -> Pytree: ...
     def posterior_cache(self, posterior: Pytree, mask: jax.Array) -> Pytree: ...
 

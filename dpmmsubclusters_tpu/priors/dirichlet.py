@@ -1,6 +1,6 @@
 """Dirichlet conjugate prior for multinomial-count clusters.
 
-TPU-native re-design of ``src/priors/multinomial_prior.jl`` +
+Re-design of ``src/priors/multinomial_prior.jl`` +
 ``src/distributions/multinomial_dist.jl``:
 
 * posterior: ``alpha' = alpha + sum_x``        (multinomial_prior.jl:16-21)

@@ -1,6 +1,6 @@
 """Normal-Inverse-Wishart conjugate prior for multivariate-Gaussian clusters.
 
-TPU-native re-design of ``src/priors/niw.jl`` + ``src/distributions/mv_gaussian.jl``.
+Re-design of ``src/priors/niw.jl`` + ``src/distributions/mv_gaussian.jl``.
 
 Parameterization matches the reference exactly (``src/priors/niw.jl:20-31``):
 ``psi`` is the "divided-by-nu" scale, i.e. the inverse-Wishart scale matrix is
@@ -20,9 +20,9 @@ Cholesky (``src/priors/niw.jl:34-40``) with a direct Bartlett draw of the
 *precision* matrix (see :func:`..ops.linalg.sample_wishart_precision`).
 
 All arrays are float32: the reference promotes sufficient statistics to
-Float64 (``src/priors/niw.jl:46``); on TPU we instead keep data centered
-(handled at the API layer) and accumulate the `sum_xx` GEMMs in float32 on the
-MXU, which the statistical tests validate.
+Float64 (``src/priors/niw.jl:46``); here we instead keep data centered
+(handled at the API layer) and accumulate the `sum_xx` GEMMs in float32 at
+``Precision.HIGHEST``, which the statistical tests validate.
 """
 from __future__ import annotations
 
@@ -109,9 +109,9 @@ class GaussianFamily:
         }
 
     def stats_from_flat(self, flat: jax.Array, d: int):
-        # flat may carry zero lane-padding columns beyond stat_dim(d): the
-        # feature cache is padded to a multiple of 128 lanes (TPU DMA runs
-        # ~2x faster on lane-aligned streams; see assign.LANE_PAD)
+        # flat may carry zero padding columns beyond stat_dim(d): the
+        # feature cache is padded to a multiple of 128 columns (see
+        # assign.pad_features)
         s = self.stat_dim(d)
         return {
             "n": flat[..., 0],
@@ -172,8 +172,7 @@ class GaussianFamily:
         only ever move wholesale (split scatter, tier remap), so the caches
         ride along as extra pytree leaves and kill one batched Cholesky +
         one lgamma sum from EVERY log-marginal evaluation (several per
-        sweep; the Cholesky's sequential column loop is latency-bound on
-        TPU, so this is a wall-time win far beyond its FLOPs)."""
+        sweep)."""
         d = prior_k["m"].shape[-1]
         psi = prior_k["psi"]
         ld0 = linalg.chol_logdet(

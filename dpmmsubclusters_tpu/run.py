@@ -23,17 +23,18 @@ Resume:   python -m dpmmsubclusters_tpu.run --resume ckpt.npz params.json
           reference's ``run_model_from_checkpoint``,
           src/dp-parallel-sampling.jl:428-447)
 
-Multi-host (one launch per host; counterpart of the reference's
-multi-machine advanced mode, src/dp-parallel-sampling.jl:317-334 +
-user-level ``addprocs``):
+Multi-process (one launch per process, e.g. one per GPU; counterpart of
+the reference's multi-machine advanced mode,
+src/dp-parallel-sampling.jl:317-334 + user-level ``addprocs``):
 
     python -m dpmmsubclusters_tpu.run --distributed params.json \
-        [--coordinator HOST:PORT --num-processes N --process-id I]
+        --coordinator HOST:PORT --num-processes N --process-id I \
+        --local-device-ids I
 
-On TPU pods the three coordinator flags are discovered from the
-environment.  ``data_path`` may contain ``{proc}`` for per-process files;
-otherwise every process loads the full file and takes its contiguous
-row slice.  ``--resume`` composes with ``--distributed``.
+The three coordinator flags are given, not discovered.  ``data_path`` may
+contain ``{proc}`` for per-process files; otherwise every process loads the
+full file and takes its contiguous row slice.  ``--resume`` composes with
+``--distributed``.
 """
 from __future__ import annotations
 
@@ -184,12 +185,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=None,
                     help="with --resume: total iterations to run to")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host mode: initialize jax.distributed and "
-                         "run fit_distributed (launch once per host)")
+                    help="multi-process mode: initialize jax.distributed "
+                         "and run fit_distributed (launch once per process)")
     ap.add_argument("--coordinator", default=None,
-                    help="coordinator HOST:PORT (TPU pods: from env)")
+                    help="coordinator HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--local-device-ids", default=None,
+                    help="comma-separated local devices this process drives "
+                         "(default: all)")
     args = ap.parse_args(argv)
     if args.distributed:
         from .parallel.distributed import initialize
@@ -198,6 +202,10 @@ def main(argv=None):
             coordinator_address=args.coordinator,
             num_processes=args.num_processes,
             process_id=args.process_id,
+            local_device_ids=(
+                None if args.local_device_ids is None
+                else [int(i) for i in args.local_device_ids.split(",")]
+            ),
         )
         if args.resume:
             result = resume_from_params_distributed(

@@ -1,29 +1,26 @@
 """The fused assignment + sufficient-statistics pass (the hot path).
 
-TPU-native replacement for the reference's three hot loops
-(SURVEY.md §3.2): per-point x per-cluster log-likelihood
-(``src/distributions/mv_gaussian.jl:21-25``), row-wise categorical sampling
-(``src/utils.jl:19-31``), and per-cluster suff-stat GEMMs
-(``src/priors/niw.jl:42-51`` driven by ``create_suff_stats_dict_worker``).
+Replaces the reference's three hot loops (SURVEY.md §3.2): per-point x
+per-cluster log-likelihood (``src/distributions/mv_gaussian.jl:21-25``),
+row-wise categorical sampling (``src/utils.jl:19-31``), and per-cluster
+suff-stat GEMMs (``src/priors/niw.jl:42-51`` driven by
+``create_suff_stats_dict_worker``).
 
 Design: one ``lax.scan`` over point chunks; each chunk does
   1. ``feat = features(x)``                      [C, F]
-  2. ``ll = feat @ phi^T``                       [C, 3K]  -- one MXU matmul
+  2. ``ll = feat @ phi^T``                       [C, 3K]  -- one matmul
      covering every slot's whole/left/right distribution at once
-  3. Gumbel-max label draw on the masked whole-columns (+ log weights)
+  3. label draw on the masked whole-columns (+ log weights)
   4. sub-label draw from the point's own slot's l/r columns (+ lr weights),
      selected by one-hot contraction -- no gathers
-  5. ``stats += onehot(label, sub)^T @ stat_features(x)``  [2K, S] MXU matmul
+  5. ``stats += onehot(label, sub)^T @ stat_features(x)``  [2K, S] matmul
 
 so the N x K likelihood matrix never materializes beyond one chunk, and the
-only cross-device traffic per sweep is the final O(K*S) stats psum.
-
-The pure-jnp path here is the portable reference implementation; see
-``ops/pallas_sweep.py`` for the fused Pallas kernel used on real TPUs.
+only cross-device traffic per sweep is the final O(K*S) stats psum.  Both
+matmuls run at ``Precision.HIGHEST`` (full f32).
 """
 from __future__ import annotations
 
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -35,10 +32,9 @@ LANES = 128  # lane-blocked stream layout: per-point scalars are [N/128, 128]
 def block_stream(a):
     """[N] per-point scalars -> canonical lane-blocked [N/128, 128].
 
-    1-D (or [N, 1]) per-point streams force XLA:TPU into T(8,128)-padded
-    relayout copies around the Pallas custom calls -- 128x the payload
-    (4.77 GB per array at N=10M).  All label/sub-label/valid state is
-    therefore kept lane-blocked end-to-end; host/flat views are reshapes.
+    All label/sub-label/valid state is kept in this blocked layout
+    end-to-end (the sharded state and checkpoints use it); host/flat
+    views are reshapes.
     """
     n = a.shape[0]
     assert n % LANES == 0, (n, LANES)
@@ -68,16 +64,12 @@ def raw_points(points, d: int, x_is_features: bool):
 
 
 def pad_features(feat):
-    """Zero-pad the feature dim to a multiple of 128 (the TPU lane count).
+    """Zero-pad the feature dim to a multiple of 128.
 
-    LANE_PAD contract: precomputed feature caches are stored lane-aligned.
-    An unaligned minor dim makes every Pallas input DMA partially-masked:
-    measured on v5e, streaming [1M, 561] f32 runs at ~164 GB/s vs ~420 GB/s
-    for [1M, 640] (benchmarks/kernel_ablate.py DMA study) -- the feature
-    stream is the kernel's bottleneck, so this is ~2x end-to-end.  phi rows
-    are zero-padded to match (zero features x any phi contribute 0 to the
-    log-likelihood) and the trailing stats columns come back as zeros,
-    sliced off in family.stats_from_flat."""
+    LANE_PAD contract: precomputed feature caches are stored 128-aligned.
+    phi rows are zero-padded to match (zero features x any phi contribute
+    0 to the log-likelihood) and the trailing stats columns come back as
+    zeros, sliced off in family.stats_from_flat."""
     f = feat.shape[-1]
     fp = -(-f // LANES) * LANES
     if fp == f:
@@ -111,10 +103,6 @@ def assign_and_stats(
     hard,         # bool scalar: argmax labels instead of sampling
     family,
     chunk: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
-    ll_precision: str = "highest",
-    stats_precision: str = "highest",
     x_is_features: bool = False,
     chunk_offset=0,
 ):
@@ -123,25 +111,13 @@ def assign_and_stats(
     :func:`block_stream`.
 
     ``x_is_features``: the rows of ``x`` are already the feature rows
-    (precomputed once per fit -- skips the per-sweep in-kernel feature
-    build, which is VPU-bound narrow-lane work).
+    (precomputed once per fit -- skips the per-sweep feature build).
 
     ``chunk_offset`` (traced i32): global index of this shard's first chunk.
     Per-point randomness is keyed on (key, global chunk index), so draws
     depend only on a point's global row position -- never on the mesh
-    layout.  RNG POLICY (Pallas path): the sweep key is compressed to a
-    31-bit seed and the in-kernel counter-based hash yields 24-bit-mantissa
-    uniforms (ops/pallas_sweep._gumbel).  Both are deliberate: the Gumbel
-    argmax only consumes O(log K + log(1/gap)) entropy bits per point and
-    the O(1) sampling noise dwarfs the 2^-24 quantization; the multi-seed
-    parity suite (benchmarks/parity.py) validates the stream statistically.
+    layout.
     """
-    if use_pallas:
-        return _assign_and_stats_pallas(
-            key, x, valid, phi, log_w, log_lrw, hard, family, chunk,
-            interpret, ll_precision, stats_precision, x_is_features,
-            chunk_offset,
-        )
     # feature_dtype="hybrid": x is {"feat": bf16 [N, Fpad] cache (ll matmul
     # only), "raw": f32 [N, D] points (exact statistics rows)}
     hybrid = isinstance(x, dict)
@@ -169,9 +145,8 @@ def assign_and_stats(
         k1, k2 = jax.random.split(kc)
 
         # [C, F] -- shared by the ll matmul AND the stats reduction.  A
-        # bf16 feature cache (config feature_dtype) is upcast here: the
-        # portable path models bf16 purely as STORAGE rounding, with all
-        # arithmetic in f32 (the Pallas path keeps the operands bf16).
+        # bf16 feature cache (config feature_dtype) is upcast here: bf16 is
+        # STORAGE rounding only, all arithmetic is f32.
         feat = xc if x_is_features else family.features(xc)
         feat = feat.astype(jnp.float32)
         ll3 = jnp.dot(
@@ -202,7 +177,7 @@ def assign_and_stats(
             # exact statistics rows rebuilt from the raw points; the bf16
             # cache never feeds the statistics contraction
             feat = family.stat_features(inp[2]).astype(jnp.float32)
-        # full-f32 MXU accumulation: default (bf16) precision suffers
+        # full-f32 products: reduced-precision (bf16/TF32) operands suffer
         # catastrophic cancellation in cov = E[xx] - mu mu^T downstream
         acc = acc + jnp.dot(
             ohs.T, feat, precision=jax.lax.Precision.HIGHEST
@@ -220,117 +195,8 @@ def assign_and_stats(
     )
 
 
-def pick_tile(chunk: int, d: int, k_slots: int, f: int,
-              built_features: bool = True, feat_bytes: int = 4,
-              raw_d: int = 0) -> int:
-    """Largest point-tile that divides ``chunk`` and fits the kernel's VMEM
-    working set in budget.
-
-    Calibrated against the Mosaic scoped-vmem accounting (16 MB stack
-    limit): with the in-kernel feature build the compiler's measured
-    footprint at (tile=512, D=64, F=2145, K=16) is 20.30M, matching a
-    ~4.5x-F per-row cost (the [T, F] result + concat temporaries + layout
-    copies).  When the rows arrive prebuilt (``built_features=False``,
-    config ``precompute_features``) the feature block is the double-buffered
-    input itself, ~2x F.  Budget leaves >=3 MB headroom under the limit."""
-    budget = 12 * 1024 * 1024
-    fixed = 4 * (f * 3 * k_slots + 2 * k_slots * f)  # phi + stats acc
-    feat_mult = 4.5 if built_features else 2.0
-    # feature_dtype="hybrid" (raw_d > 0): ADD the raw-point input stream and
-    # the in-kernel f32 rebuild of the statistics rows (build temporaries +
-    # result, same ~4.5x model as the built-features case)
-    hybrid_row = 0.0
-    if raw_d:
-        s_dim = 1 + raw_d + raw_d * (raw_d + 1) // 2
-        hybrid_row = 4 * (2.0 * raw_d + 4.5 * s_dim)
-    # tiles are multiples of 128: per-point scalar streams block as
-    # [tile/128, 128] (full vector lanes, no tiling padding).  tile=1024 is
-    # only offered to bf16 caches (feat_bytes=2): at f32 the VMEM model
-    # rejects it for the flagship anyway, and keeping f32 configs on their
-    # historical tiles keeps their tile-keyed RNG streams stable.
-    tiles = (1024, 512, 256, 128) if feat_bytes < 4 else (512, 256, 128)
-    for tile in tiles:
-        if chunk % tile:
-            continue
-        per_row = (feat_bytes * (d + feat_mult * f)
-                   + 4 * (3 * k_slots + 4 * k_slots + 2) + hybrid_row)
-        if fixed + tile * per_row <= budget:
-            return tile
-    return 128
-
-
-def _delta_phi(phi, log_lrw):
-    """[K, 3, F] natural params -> [F, 2K] kernel columns
-    [whole K | delta K]: delta = phi_r - phi_l with the sub-cluster
-    log-weight ratio log(lrw_r/lrw_l) folded into the CONSTANT feature's
-    row (every family's feature row 0 is the literal 1), so the kernel's
-    sub-label decision is one one-hot contraction of the delta columns --
-    no separate l/r columns, no per-point lr-weight adds."""
-    k_slots, _, f = phi.shape
-    whole = phi[:, 0]                         # [K, F]
-    delta = phi[:, 2] - phi[:, 1]             # [K, F]
-    delta = delta.at[:, 0].add(log_lrw[:, 1] - log_lrw[:, 0])
-    return jnp.concatenate([whole, delta], axis=0).T  # [F, 2K]
-
-
-def _assign_and_stats_pallas(
-    key, x, valid, phi, log_w, log_lrw, hard, family, chunk: int,
-    interpret: bool, ll_precision: str = "highest",
-    stats_precision: str = "highest", x_is_features: bool = False,
-    chunk_offset=0,
-):
-    """Dispatch the fused Pallas kernel (see ops/pallas_sweep.py) and adapt
-    layouts: phi [K, 3, F] -> [F, 2K] whole/delta columns (_delta_phi);
-    stats [2K, F] rows [whole | right] -> [K, 2, S] via left = whole - right
-    (counts exact; left SUMS carry absolute rounding at the whole cluster's
-    magnitude).  stats_precision="highest" keeps the exactness escape hatch:
-    the kernel then accumulates [left | right] directly."""
-    from ..ops import pallas_sweep
-
-    hybrid = isinstance(x, dict)  # feature_dtype="hybrid": {"feat", "raw"}
-    x_ll = x["feat"] if hybrid else x
-    x_raw = x["raw"] if hybrid else None
-    k_slots = phi.shape[0]
-    f = x_ll.shape[-1] if x_is_features else phi.shape[-1]
-    tile = pick_tile(chunk, x_ll.shape[-1], k_slots, f,
-                     built_features=not x_is_features,
-                     feat_bytes=x_ll.dtype.itemsize,
-                     raw_d=(x_raw.shape[-1] if hybrid else 0))
-    phi_mat = _delta_phi(phi, log_lrw)
-    if x_is_features:
-        phi_mat = _pad_phi_rows(phi_mat, f)  # lane-padded feature cache
-    seed = jax.random.randint(key, (), 0, 2**31 - 1, jnp.int32)
-    # global tile index base: the kernel's per-tile counter RNG mixes
-    # (seed, tile_off + program_id) so draws are mesh-layout-invariant
-    tile_off = jnp.int32(chunk_offset) * (chunk // tile)
-    labels, sub, stats2k = pallas_sweep.fused_assign(
-        seed, x_ll, valid, phi_mat, log_w,
-        hard.astype(jnp.int32),
-        tile_off=tile_off,
-        k_slots=k_slots,
-        family_name=(
-            "hybrid" if hybrid
-            else ("precomputed" if x_is_features else family.name)
-        ),
-        tile=tile,
-        interpret=interpret,
-        ll_precision=ll_precision,
-        stats_precision=stats_precision,
-        x_raw=x_raw,
-    )
-    right = stats2k[k_slots:]
-    if stats_precision == "highest":
-        left = stats2k[:k_slots]           # direct [left | right] rows
-    else:
-        left = stats2k[:k_slots] - right   # [whole | right] rows
-    stats_lr = jnp.stack([left, right], axis=1)
-    return labels, sub, stats_lr
-
-
 def stats_only(
     x, valid, labels, sublabels, k_slots: int, family, chunk: int,
-    use_pallas: bool = False, interpret: bool = False,
-    stats_precision: str = "highest", enable=None,
     x_is_features: bool = False,
 ):
     """Recompute per-(slot, side) statistics from given labels/sub-labels
@@ -339,33 +205,11 @@ def stats_only(
     Used after split moves and bad-cluster resets rewrite labels
     (reference ``update_suff_stats_posterior!``,
     src/local_clusters_actions.jl:206-254).  Returns f32[K, 2, S].
-
-    ``enable`` (traced bool, Pallas path only): 0 makes the pass a no-op
-    returning zeros -- the in-kernel replacement for wrapping the call in
-    ``lax.cond``, which XLA:TPU flattens into execute-both-and-select.
     """
     if isinstance(x, dict):
         # feature_dtype="hybrid": statistics always come from the exact raw
         # points -- the bf16 cache is never involved in this pass
         x, x_is_features = x["raw"], False
-    if use_pallas:
-        from ..ops import pallas_sweep
-
-        f = (
-            x.shape[-1] if x_is_features
-            else family.feature_dim(x.shape[-1])
-        )
-        tile = pick_tile(chunk, x.shape[-1], k_slots, f,
-                         built_features=not x_is_features,
-                         feat_bytes=x.dtype.itemsize)
-        stats2k = pallas_sweep.stats_from_labels(
-            x, labels, sublabels, valid,
-            k_slots=k_slots,
-            family_name="precomputed" if x_is_features else family.name,
-            tile=tile,
-            interpret=interpret, precision=stats_precision, enable=enable,
-        )
-        return jnp.stack([stats2k[:k_slots], stats2k[k_slots:]], axis=1)
     s = x.shape[-1] if x_is_features else family.stat_dim(x.shape[-1])
     xs = (
         _chunk(x, chunk),

@@ -1,6 +1,6 @@
 """Smart split initialization: PCA projection + 1-D 2-means sub-labels.
 
-TPU-native re-design of ``smart_cluster_init!`` and its worker kernels
+Re-design of ``smart_cluster_init!`` and its worker kernels
 (``src/local_clusters_actions.jl:555-653``).  The reference runs this
 per-cluster with distributed RPC: master eigendecomposes the cluster
 covariance, workers project their local points onto the top eigenvector, and
@@ -19,9 +19,7 @@ whole thing is one vectorized masked program over EVERY marked slot at once:
   near-extreme percentiles, ``:645-650``; mean +/- std is the same idea
   without a distributed sort);
 * ``max_split_iter`` Lloyd iterations whose per-slot sums are CHUNKED
-  ONE-HOT MATMUL reductions (``oh^T @ vals`` on the MXU) -- never
-  ``segment_sum``/``gather``, whose scatter lowering serializes on TPU
-  (measured ~0.8 s per pass at N=1M vs ~10 ms for the matmul form); a
+  ONE-HOT MATMUL reductions (``oh^T @ vals``) rather than scatters; a
   ``psum`` over the data axis replaces the reference's master-side mean
   reduction (``:588-622``).
 """
@@ -64,14 +62,9 @@ def smart_sublabels(
     max_iter: int,
     axis_name: Optional[str] = None,
     chunk: int = 16384,
-    gate=None,              # optional traced bool: False -> Lloyd skipped
 ) -> jax.Array:
     """Returns sub-labels (lane-blocked) with points of marked slots set by
-    the projected 2-means; all other points keep their current sub-label.
-
-    ``gate`` (for flatten-safe in-program use on TPU): when False the Lloyd
-    while_loop exits immediately and -- since no slot is marked -- the
-    output equals ``sublabels``; only the cheap projection scans run."""
+    the projected 2-means; all other points keep their current sub-label."""
     blocked_shape = sublabels.shape
     n = points.shape[0]
     chunk = min(chunk, n)
@@ -155,11 +148,9 @@ def smart_sublabels(
     # movement tolerance is relative to the projection spread (std)
     tol = 1e-3 * jnp.maximum(jnp.max(std), 1e-12)
 
-    enabled = jnp.asarray(True) if gate is None else gate
-
     def cond(carry):
         m, prev_move, it = carry
-        return (it < max_iter) & (prev_move > tol) & enabled
+        return (it < max_iter) & (prev_move > tol)
 
     def step(carry):
         m, _, it = carry

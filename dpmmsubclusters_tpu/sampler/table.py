@@ -1,6 +1,6 @@
 """The padded fixed-capacity cluster table.
 
-TPU-native replacement for the reference's dynamic ``Vector{local_cluster}``
+Replacement for the reference's dynamic ``Vector{local_cluster}``
 (``src/ds.jl:43-57``): ``k_max`` slots of struct-of-arrays state with static
 shapes under jit.  Cluster birth (split) activates a free slot; death
 (merge / empty) deactivates one; the reference's label-renumbering compaction

@@ -1,7 +1,7 @@
 """Profiling helpers.
 
 The reference's only instrumentation is wall-clock accumulation per
-iteration (``src/dp-parallel-sampling.jl:363-366``); the TPU build exposes
+iteration (``src/dp-parallel-sampling.jl:363-366``); this build exposes
 the same per-iteration host timings (``FitResult.history.times``) plus real
 device traces via ``jax.profiler``.
 """

@@ -1,6 +1,6 @@
 // Fast npy data loader: mmap + parallel scrub/cast/transpose.
 //
-// Native runtime component of the TPU DPMM framework (the reference's data
+// Native runtime component of the DPMM framework (the reference's data
 // path is a single-threaded Julia npy read + NaN scrub + transpose,
 // src/utils.jl:5-14).  For the 10M x 64-d flagship workloads the Python
 // loader becomes a startup bottleneck; this library does the whole

@@ -31,6 +31,29 @@ def test_load_data_native_path(tmp_path, rng):
     np.testing.assert_allclose(got, want)
 
 
+def test_native_build_is_atomic_under_concurrent_builders(tmp_path):
+    """Processes that start together may all build the native loader; each
+    build is renamed into place whole, so none loads a half-written file
+    and no temporary file is left behind."""
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+
+    native = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native")
+    for name in ("build.sh", "fastload.cc"):
+        shutil.copy(os.path.join(native, name), tmp_path)
+    builders = [subprocess.Popen(["sh", str(tmp_path / "build.sh")],
+                                 stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE) for _ in range(4)]
+    assert [b.wait(timeout=300) for b in builders] == [0] * 4
+    assert sorted(os.listdir(tmp_path)) == [
+        "build.sh", "fastload.cc", "libdpmmfastload.so"]
+    lib = ctypes.CDLL(str(tmp_path / "libdpmmfastload.so"))
+    assert hasattr(lib, "dpmm_convert")
+
+
 def test_load_data_prefix_convention(tmp_path, rng):
     a = rng.normal(size=(50, 3)).astype(np.float32)
     np.save(tmp_path / "mydata.npy", a)

@@ -177,6 +177,53 @@ print(f"proc {proc}: OK cli")
 """
 
 
+class _Initialized(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag,want", [
+    ([], None),
+    (["--local-device-ids", "2"], [2]),
+    (["--local-device-ids", "1,3"], [1, 3]),
+])
+def test_cli_passes_coordinator_and_device_ids(monkeypatch, flag, want):
+    """``--distributed`` hands the coordinator flags and the process's
+    local devices to ``jax.distributed.initialize``."""
+    import jax
+
+    from dpmmsubclusters_tpu.run import main
+
+    seen = {}
+
+    def fake_initialize(**kwargs):
+        seen.update(kwargs)
+        raise _Initialized
+
+    monkeypatch.setattr(jax.distributed, "initialize", fake_initialize)
+    monkeypatch.delenv("XLA_FLAGS", raising=False)  # restored afterwards
+    with pytest.raises(_Initialized):
+        main(["--distributed", "--coordinator", "localhost:1234",
+              "--num-processes", "4", "--process-id", "2"] + flag
+             + ["params.json"])
+    assert seen == {"coordinator_address": "localhost:1234",
+                    "num_processes": 4, "process_id": 2,
+                    "local_device_ids": want}
+
+
+@pytest.mark.parametrize("before,after", [
+    (None, "--xla_gpu_shard_autotuning=false"),
+    ("--xla_dump_to=/x", "--xla_dump_to=/x --xla_gpu_shard_autotuning=false"),
+    ("--xla_gpu_shard_autotuning=true", "--xla_gpu_shard_autotuning=true"),
+])
+def test_multi_process_autotunes_per_process(before, after):
+    """Each process autotunes its own programs unless the user chose."""
+    from dpmmsubclusters_tpu.parallel.distributed import autotune_per_process
+
+    env = {} if before is None else {"XLA_FLAGS": before}
+    autotune_per_process(env)
+    assert env["XLA_FLAGS"] == after
+
+
 @pytest.mark.slow
 def test_distributed_cli(tmp_path):
     """End-to-end ``python -m dpmmsubclusters_tpu.run --distributed``: the

@@ -165,8 +165,8 @@ def test_checkpoint_roundtrip_across_tiers(tmp_path):
 def test_max_clusters_caps_tier_ceiling():
     """With max_clusters set, the tier ceiling shrinks to the smallest
     tier covering the cap: capacity above it is pure table-width waste
-    (splits are suppressed at the cap anyway; measured +2.5 ms/sweep per
-    extra MXU column tile at the flagship)."""
+    (splits are suppressed at the cap anyway, and every per-sweep cost
+    grows with the table width)."""
     import dpmmsubclusters_tpu as dpmm
 
     rng = np.random.default_rng(2)

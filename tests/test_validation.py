@@ -69,14 +69,25 @@ def test_multinomial_prior_shape_raises():
     dict(outlier_mod=1.0),
     dict(outlier_mod=-0.1),
     dict(feature_dtype="float16"),
-    dict(ll_precision="fp8"),
-    dict(ll_precision="split2"),     # a stats-only mode
-    dict(stats_precision="bf16"),    # not a stats mode ("default" is)
     dict(max_clusters=0),
 ])
 def test_config_rejects_bad_values(kw):
     with pytest.raises(ValueError, match="DPMMConfig"):
         DPMMConfig(**kw)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("use_pallas", True),
+    ("ll_precision", "default"),
+    ("stats_precision", "split2"),
+])
+def test_removed_kernel_knobs_raise_type_error(knob, value):
+    """The fused-kernel knobs are gone: passing one is an unknown field,
+    both to DPMMConfig and as a fit keyword."""
+    with pytest.raises(TypeError, match=knob):
+        DPMMConfig(**{knob: value})
+    with pytest.raises(TypeError, match=knob):
+        dpmm.fit(_data(), iters=2, verbose=False, **{knob: value})
 
 
 def test_multinomial_smart_splits_raises():
